@@ -1,4 +1,4 @@
-.PHONY: test bench native clean
+.PHONY: test bench smoke native clean
 
 test:
 	python -m pytest tests/ -q
@@ -6,10 +6,14 @@ test:
 bench:
 	python bench.py
 
+smoke:
+	python chip_smoke.py
+
 native:
-	g++ -O2 -shared -fPIC -o cvsim_tpu/native/libhostio.so cvsim_tpu/native/hostio.cpp
-	g++ -O2 -o .bench_scalar_baseline cvsim_tpu/native/scalar_baseline.cpp
+	python -c "from cvsim_tpu import native; from cvsim_tpu.native import hostpix; native._load(); hostpix._load(); native.build_av_tool()"
 
 clean:
-	rm -rf .jax_cache .bench_scalar_baseline cvsim_tpu/native/libhostio.so \
+	rm -rf .jax_cache .bench_scalar_baseline .bench_scalar_baseline.key \
+	    cvsim_tpu/native/libhostio.so cvsim_tpu/native/libhostpix.so \
+	    cvsim_tpu/native/cvsim-av cvsim_tpu/native/*.key \
 	    $(shell find . -name __pycache__ -type d)

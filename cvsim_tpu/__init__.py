@@ -1,8 +1,9 @@
-"""cvsim_tpu — TPU-native rebuild of composite-video-simulator.
+"""cvsim_tpu — a JAX rebuild of composite-video-simulator.
 
 This is the `composite-video-simulator_tpu` package (spelled `cvsim_tpu` so it is
-importable from Python). It reimplements, from scratch and TPU-first
-(JAX/XLA/Pallas), the full capability surface of the reference C++ tool suite
+importable from Python). It reimplements, from scratch as batched JAX/XLA
+programs that run on a GPU, the full capability surface of the reference
+C++ tool suite
 `joncampbell123/composite-video-simulator`:
 
 - the gen-1 YUV 4:2:2 composite/VHS engine  (`ffmpeg_to_composite.cpp`)

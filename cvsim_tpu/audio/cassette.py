@@ -16,7 +16,7 @@ sample from
 
 and convolves past samples: out(t) = sum_i k[i] * s(t - (len-1-i)).
 
-TPU-first: the kernel bank for a whole chunk is computed closed-form as a
+Vectorized: the kernel bank for a whole chunk is computed closed-form as a
 [N, len] array, the signal history as a [N, len] sliding window (static
 slices of a padded buffer, with len-1 samples of carried state), and the
 convolution as one batched dot — no per-sample loop.
@@ -155,7 +155,8 @@ def cassette_audio_process(
         [jax.lax.dynamic_slice_in_dim(full, i, n, axis=0)
          for i in range(length)], axis=1)                # win[t, i] = s[t-(len-1-i)]
     kern = _head_kernels(cfg, state.sample_count, n, dtype)
-    s = jnp.einsum("nlc,nlc->nc", wins, kern, preferred_element_type=dtype)
+    s = jnp.einsum("nlc,nlc->nc", wins, kern, preferred_element_type=dtype,
+                   precision=jax.lax.Precision.HIGHEST)
     history = full[-(length - 1):] if length > 1 else full[:0]
 
     # 6. deemphasis

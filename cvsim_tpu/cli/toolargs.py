@@ -164,8 +164,8 @@ def try_native_restore(tool: str, args: ToolArgs, enc: dict,
                        extra_flags: list) -> int | None:
     """Run the restore tool's whole decode -> kernel -> encode loop inside
     cvsim-av, ONE address space — the reference binaries' cost class
-    (ffmpeg_vhsled.cpp:838-977, frameblend.cpp:929-1081; VERDICT r4 #2
-    measured the Y4M-pipe bridge losing 0.61-0.98x to them). The native
+    (ffmpeg_vhsled.cpp:838-977, frameblend.cpp:929-1081), where a Y4M
+    pipe bridge to Python loses to them. The native
     loops call the same hostpix.cpp kernels this module's fallback loops
     use through ctypes, so the two paths are byte-identical
     (tests/test_restore_native.py pins y4m-in/y4m-out equality).

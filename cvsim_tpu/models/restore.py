@@ -21,7 +21,7 @@ import numpy as np
 
 # jax imports live inside the device functions: the restore tools' CLI
 # paths run on host-numpy twins (models/tools_np.py) and must not pay the
-# jax import (these are one-shot host processes; VERDICT r3 #6)
+# jax import (these are one-shot host processes)
 
 
 # ------------------------------------------------------------------ gamma LUTs

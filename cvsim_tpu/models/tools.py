@@ -245,9 +245,9 @@ def _splat_scatter(px, py, sig, radius, r_int: int, dst_h: int, dst_w: int):
 
 def _splat_matmul(px, py, sig, radius, r_int: int, dst_h: int, dst_w: int,
                   band: int = 48, row_chunk: int = 4):
-    """Phosphor splat as one-hot selection matmuls (MXU) instead of S^2
-    serialized scatter passes (round-1 weak #6: trace and runtime grew with
-    the stamp area; 480->1080 ran at ~2 fields/s).
+    """Phosphor splat as one-hot selection matmuls instead of S^2
+    serialized scatter passes (whose trace and runtime grew with the stamp
+    area).
 
     Structure: dots come from source rows whose warped screen-y spread is
     small (the 4 scanimate warps scale/shift whole rows; only the CRT slant
@@ -326,7 +326,7 @@ def _splat_matmul(px, py, sig, radius, r_int: int, dst_h: int, dst_w: int,
 
         # split-byte bf16 matmuls: stamp values < 2^13 split into hi/lo
         # bytes, each exactly representable in bf16, accumulated in f32 —
-        # exact integer math at the MXU's bf16 rate instead of f32
+        # exact integer math at the bf16 matmul rate instead of f32
         bhi = (b >> 8).astype(jnp.bfloat16)
         blo = (b & 255).astype(jnp.bfloat16)
         m = (jnp.einsum("rmc,rck->rmk", bhi, e,

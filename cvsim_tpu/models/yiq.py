@@ -1,6 +1,6 @@
 """Gen-2 composite engine: true signed-int planar YIQ (ffmpeg_ntsc.cpp).
 
-Rebuilt TPU-first: the unit of work is a *batch of fields* — int32 arrays of
+The unit of work is a *batch of fields* — int32 arrays of
 shape [B, L, W] (B fields, L active lines per field, W samples per line) plus
 per-field metadata (fieldno, field parity). Every reference per-scanline loop
 becomes either a vectorized elementwise op, an FIR, or a parallel scan over
@@ -32,9 +32,9 @@ from cvsim_tpu.config import CompositeConfig, NTSC_RATE, iir_alpha
 from cvsim_tpu.ops.cmath import c_div, c_int
 from cvsim_tpu.ops.iir import (
     cascade_emph,
-    cascade_plain,
     cascade_unsharp,
     delay_writeback,
+    iir_lowpass_cascade,
 )
 from cvsim_tpu.ops.noise import (
     field_stage_keys,
@@ -121,7 +121,7 @@ def _lowpass_plane(p, cutoff, delay, passes, dtype):
     """3-pass lowpass + delayed writeback on an int32 [B,L,W] plane
     (composite_lowpass inner loop, ffmpeg_ntsc.cpp:1445-1454)."""
     alpha = iir_alpha(NTSC_RATE, cutoff)
-    s = cascade_plain(p.astype(dtype), alpha, 0.0, passes)
+    s = iir_lowpass_cascade(p.astype(dtype), alpha, 0.0, passes)
     return delay_writeback(p, c_int(s).astype(jnp.int32), delay)
 
 
@@ -179,7 +179,7 @@ def chroma_from_luma(y, i, q, xi, subcarrier_amplitude_back: int):
     """Y/C separation + QAM decode (ffmpeg_ntsc.cpp:1497-1567).
 
     Phase-dependent addressing is done with static [4,W] table selects and a
-    barrel-shift rotation instead of gathers (TPU lane gathers are slow).
+    barrel-shift rotation instead of per-sample gathers.
     """
     del i, q  # overwritten by decode
     b, l, w = y.shape
@@ -234,8 +234,8 @@ def composite_preemphasis_stage(y, pre_scale: float, pre_cut: float, dtype=jnp.f
 def video_noise_stage(y, keys, mag: int, dtype=jnp.float32):
     """Smoothed random-walk luma noise (ffmpeg_ntsc.cpp:1631-1644); the walk
     resets per scanline (statistical-parity deviation from the reference's
-    field-continuous walk — see ops/noise.smoothed_noise_walk_rows, which
-    makes in-kernel generation tile-local). keys: [B] per-field keys
+    field-continuous walk — see ops/noise.smoothed_noise_walk_rows). keys:
+    [B] per-field keys
     (field_stage_keys) so noise is batch-invariant."""
     b, l, w = y.shape
     walk = smoothed_noise_walk_rows(keys, l, w, mag, dtype=dtype)
@@ -310,7 +310,7 @@ def head_switching_stage(
     twidth = w + w // 10
     # C semantics of the fmod/unsigned-cast geometry (sign-preserving fmod,
     # truncate-toward-zero then wrap mod 2^32 — ffmpeg_ntsc.cpp:1666-1670)
-    # live in _head_switch_geometry, shared with the padded fast path.
+    # live in _head_switch_geometry.
     ishif, l_start = _head_switch_geometry(
         field_parity, keys, point=point, phase=phase,
         phase_noise=phase_noise, twidth=twidth, ntsc=ntsc, dtype=dtype)
@@ -338,7 +338,7 @@ def head_switching_stage(
 def _head_switch_geometry(field_parity, keys, *, point, phase, phase_noise,
                           twidth, ntsc, dtype):
     """(ishif, l_start) per field — the C fmod/unsigned-cast geometry of
-    head_switching_stage, factored out for the windowed variant."""
+    head_switching_stage."""
     tlines = 262.5 if ntsc else 312.5
     t = twidth * tlines
     b = field_parity.shape[0]
@@ -363,131 +363,6 @@ def _head_switch_geometry(field_parity, keys, *, point, phase, phase_noise,
     return ishif, l_start
 
 
-def head_switching_padded(
-    y_pad, l: int, w: int, field_parity, keys, *,
-    point: float, phase: float, phase_noise: float,
-    ntsc: bool = True, fill: float = 0.0,
-):
-    """Head switching applied in place on a PADDED [B, Lp, Wp] float plane.
-
-    Same math as head_switching_stage (ffmpeg_ntsc.cpp:1646-1713), but the
-    fused-chain fast path: the ≤64-line switch window is the only data
-    that moves — no full-plane crop/astype/re-pad between the two Pallas
-    kernel halves (round-2 weak #4: that hop cost ~25-30% at 1080i) — and
-    the shift-decay scan runs a fixed ~128 steps instead of one step per
-    scanline. Rows/cols outside the window (including the padding) pass
-    through untouched; rotation only permutes integral sample values, so
-    the result is bit-identical to the staged int path.
-
-    The window extract and realign ride the MXU as one-hot row-selection
-    contractions: the batch-varying window start made the former
-    vmap(dynamic_slice/dynamic_update_slice) lower to gather/scatter,
-    measured 16.3 us/field on v5e vs 6.7 for the one-hot form (a 0/1
-    selection matmul at HIGHEST precision is exact — each output row is
-    one plane row plus exact +0.0 terms).
-    """
-    b, lp, wp = y_pad.shape
-    twidth = w + w // 10
-    dtype = y_pad.dtype
-    # geometry noise math runs in f32 regardless of the plane dtype (the
-    # stage path always used jnp.float32 here; a numpy dtype object would
-    # also break uniform_pm1_per_field's `dtype(x)` casts)
-    ishif, l_start = _head_switch_geometry(
-        field_parity, keys, point=point, phase=phase,
-        phase_noise=phase_noise, twidth=twidth, ntsc=ntsc,
-        dtype=jnp.float32)
-
-    win = min(64, l)
-    w0 = jnp.clip(l_start + 1, 0, l - win)                        # [B]
-    # applied(k) shift decay for k in [0, KMAX): KMAX bounds the largest
-    # window k (w0 + win - 1 - l_start): l_start >= -(vis_off//2 + 3), so
-    # 128 covers NTSC (-22) and PAL (-24) with margin; larger l_start
-    # clips to zero shift via idx >= 0 exactly like the full schedule
-    KMAX = 128
-
-    def step(carry, k):
-        nxt = jnp.where(k == 0, ishif,
-                        c_div(carry * 7, 8).astype(jnp.int32))
-        return nxt, carry
-
-    _, applied = jax.lax.scan(step, jnp.zeros_like(ishif),
-                              jnp.arange(KMAX, dtype=jnp.int32))
-    applied = applied.T                                            # [B, KMAX]
-    idx = w0[:, None] + jnp.arange(win, dtype=jnp.int32)[None, :] \
-        - l_start[:, None]                                         # [B, win]
-    safe = jnp.clip(idx, 0, KMAX - 1)
-    shifts = jnp.where(idx >= 0,
-                       jnp.take_along_axis(applied, safe, axis=1), 0)
-
-    fill_v = jnp.asarray(fill, dtype)
-
-    # one-hot row-selection matrix [B, win, Lp]: window row k of field b is
-    # global row w0[b]+k — used for both the extract (contract Lp) and the
-    # realign (contract win), so neither needs a gather/scatter
-    rows = jnp.arange(lp, dtype=jnp.int32)
-    sel = (w0[:, None, None]
-           + jnp.arange(win, dtype=jnp.int32)[None, :, None]
-           == rows[None, None, :]).astype(dtype)
-    high = jax.lax.Precision.HIGHEST
-
-    ywin = jax.lax.dot_general(
-        sel, y_pad, (((2,), (1,)), ((0,), (0,))),
-        precision=high)                                          # [B,win,Wp]
-    body = ywin[:, :, :w]
-    padded = jnp.concatenate(
-        [body, jnp.full((b, win, twidth - w), fill_v, dtype)], axis=2)
-    rotated = roll_rows(padded, shifts)[..., :w]
-    rotated = jnp.where(shifts[..., None] != 0, rotated, body)
-    new = jnp.concatenate([rotated, ywin[:, :, w:]], axis=2)     # [B,win,Wp]
-
-    aligned = jax.lax.dot_general(
-        sel, new, (((1,), (1,)), ((0,), (0,))),
-        precision=high)                                          # [B,Lp,Wp]
-    in_win = ((rows[None, :] >= w0[:, None])
-              & (rows[None, :] < w0[:, None] + win))             # [B,Lp]
-    return jnp.where(in_win[..., None], aligned, y_pad)
-
-
-def head_switch_window_shifts(l: int, field_parity, keys, *, point, phase,
-                              phase_noise, twidth: int, ntsc: bool,
-                              win: int):
-    """Head-switch shifts for a sublane-ALIGNED window: ([B, win], [B]).
-
-    Same geometry + 7/8 integer decay as head_switching_padded
-    (ffmpeg_ntsc.cpp:1646-1713), but the window start w0a is rounded down
-    to a multiple of 8 so the fused kernels can pl.load/pl.store the
-    window on the VMEM-resident tile IN-KERNEL
-    (fused_yiq._head_switch_window): only these tiny per-row/per-field
-    operands cross HBM instead of the whole encoded-luma plane taking an
-    extra XLA hop between the kernel halves. [w0a, w0a+win) covers every
-    row with a nonzero shift: |ishif| <= twidth/2 decays to 0 in <64
-    steps, and win >= min(72, l) covers that plus the alignment slack.
-    """
-    ishif, l_start = _head_switch_geometry(
-        field_parity, keys, point=point, phase=phase,
-        phase_noise=phase_noise, twidth=twidth, ntsc=ntsc,
-        dtype=jnp.float32)
-    KMAX = 128
-
-    def step(carry, k):
-        nxt = jnp.where(k == 0, ishif, c_div(carry * 7, 8).astype(jnp.int32))
-        return nxt, carry
-
-    _, applied = jax.lax.scan(step, jnp.zeros_like(ishif),
-                              jnp.arange(KMAX, dtype=jnp.int32))
-    applied = applied.T                                       # [B, KMAX]
-    w0 = jnp.clip(l_start + 1, 0, max(l - min(64, l), 0))
-    w0a = jnp.clip((w0 // 8) * 8, 0, max(l - win, 0))
-    idx = (w0a[:, None] + jnp.arange(win, dtype=jnp.int32)[None, :]
-           - l_start[:, None])
-    safe = jnp.clip(idx, 0, KMAX - 1)
-    # idx >= KMAX rows are zero anyway (the decay dies in <64 steps); the
-    # mask just keeps that fact local instead of relying on applied[127]
-    shifts = jnp.where((idx >= 0) & (idx < KMAX),
-                       jnp.take_along_axis(applied, safe, axis=1), 0)
-    return shifts, w0a
-
-
 def chroma_dropout_stage(i, q, keys, loss: int):
     """Per-scanline chroma wipe: rand()%100000 < loss (ffmpeg_ntsc.cpp:1891-1901).
     keys: [B] per-field keys."""
@@ -510,8 +385,8 @@ def vhs_luma_lowpass(y, luma_cut: float, dtype=jnp.float32):
 def vhs_chroma_lowpass(i, q, chroma_cut: float, chroma_delay: int, dtype=jnp.float32):
     """ffmpeg_ntsc.cpp:1814-1836 — gen-2 runs chroma at the full luma rate."""
     alpha = iir_alpha(NTSC_RATE, chroma_cut)
-    si = cascade_plain(i.astype(dtype), alpha, 0.0, 3)
-    sq = cascade_plain(q.astype(dtype), alpha, 0.0, 3)
+    si = iir_lowpass_cascade(i.astype(dtype), alpha, 0.0, 3)
+    sq = iir_lowpass_cascade(q.astype(dtype), alpha, 0.0, 3)
     i = delay_writeback(i, c_int(si).astype(jnp.int32), chroma_delay)
     q = delay_writeback(q, c_int(sq).astype(jnp.int32), chroma_delay)
     return i, q
@@ -644,19 +519,3 @@ def composite_layer_rgb(
     r, g, b = yiq_to_rgb(y, i, q, dtype)
     return jnp.stack([r, g, b], axis=-1).astype(jnp.uint8)
 
-
-def composite_layer_rgb_auto(rgb, fieldno, field_parity, key, *,
-                             cfg: CompositeConfig, dtype=jnp.float32):
-    """Backend dispatch: the fused Pallas chain on TPU (bit-identical output
-    — tests/test_fused_chain; line-tiled automatically for HD rasters), the
-    XLA path elsewhere (CPU tests, GSPMD-sharded meshes)."""
-    import os
-
-    if (dtype == jnp.float32 and jax.default_backend() == "tpu"
-            and os.environ.get("CVSIM_FUSED", "1") == "1"):
-        from cvsim_tpu.models.fused_yiq import composite_layer_rgb_fused
-
-        return composite_layer_rgb_fused(
-            rgb, fieldno, field_parity, key, cfg=cfg)
-    return composite_layer_rgb(rgb, fieldno, field_parity, key,
-                               cfg=cfg, dtype=dtype)

@@ -24,9 +24,9 @@ from cvsim_tpu.config import CompositeConfig, NTSC_RATE, NTSC_RATE_422, iir_alph
 from cvsim_tpu.ops.cmath import c_div, c_int, clampu8
 from cvsim_tpu.ops.iir import (
     cascade_emph,
-    cascade_plain,
     cascade_unsharp,
     delay_writeback,
+    iir_lowpass_cascade,
     iir_highpass,
 )
 from cvsim_tpu.ops.noise import (
@@ -59,7 +59,7 @@ def chroma_lowpass(u, v, *, ntsc: bool = True, dtype=jnp.float32):
         alpha_lp = iir_alpha(NTSC_RATE_422, cutoff)
         s = p.astype(dtype)
         s = s + iir_highpass(s, alpha_hp, 128.0)
-        s = cascade_plain(s, alpha_lp, 128.0, 3)
+        s = iir_lowpass_cascade(s, alpha_lp, 128.0, 3)
         return delay_writeback(p, _U8(s), delay)
 
     if ntsc:
@@ -77,7 +77,7 @@ def chroma_lowpass_lite(u, v, dtype=jnp.float32):
 
     def one(p):
         alpha = iir_alpha(NTSC_RATE_422, NTSC_RATE_422 / 4)
-        s = cascade_plain(p.astype(dtype), alpha, 128.0, 3)
+        s = iir_lowpass_cascade(p.astype(dtype), alpha, 128.0, 3)
         return delay_writeback(p, _U8(s), 1)
 
     return one(u), one(v)
@@ -201,7 +201,7 @@ def vhs_chroma_lowpass(u, v, chroma_cut: float, chroma_delay: int, dtype=jnp.flo
     alpha = iir_alpha(NTSC_RATE_422, chroma_cut)
 
     def one(p):
-        s = cascade_plain(p.astype(dtype), alpha, 128.0, 3)
+        s = iir_lowpass_cascade(p.astype(dtype), alpha, 128.0, 3)
         return delay_writeback(p, _U8(s), chroma_delay)
 
     return one(u), one(v)
@@ -327,25 +327,6 @@ composite_video_process_jit = functools.partial(
                 y, u, v, cfg=cfg, fieldno=fieldno, field_parity=field_parity,
                 key=key, dtype=dtype))
 
-
-def composite_video_process_auto(y, u, v, fieldno, field_parity, key, *,
-                                 cfg: CompositeConfig, dtype=jnp.float32):
-    """Backend dispatch: fused two-kernel Pallas chain on TPU (bit-identical,
-    tests/test_fused_chain.py), stage-by-stage XLA path elsewhere and for the
-    debug taps the fused path doesn't carry."""
-    import os
-
-    if (dtype == jnp.float32 and jax.default_backend() == "tpu"
-            and os.environ.get("CVSIM_FUSED", "1") == "1"
-            and not cfg.nocolor_subcarrier
-            and not cfg.nocolor_subcarrier_after_yc_sep):
-        from cvsim_tpu.models.fused_yuv import composite_video_process_fused
-
-        return composite_video_process_fused(
-            y, u, v, fieldno, field_parity, key, cfg=cfg)
-    return composite_video_process(
-        y, u, v, cfg=cfg, fieldno=fieldno, field_parity=field_parity,
-        key=key, dtype=dtype)
 
 
 # ---------------------------------------------------------- black key stage

@@ -1,4 +1,5 @@
-"""ctypes binding for the native host runtime (libhostio).
+"""ctypes binding for the native host runtime (libhostio), and the build
+rule every native part of the repo shares (ensure_built).
 
 Builds the shared library on first use with g++ (no pip deps). Falls back to
 a NumPy implementation when no compiler is available (slower, same results).
@@ -7,6 +8,8 @@ a NumPy implementation when no compiler is available (slower, same results).
 from __future__ import annotations
 
 import ctypes
+import functools
+import hashlib
 import os
 import subprocess
 import sys
@@ -33,6 +36,70 @@ _av_lock = threading.Lock()
 _av_state: list = []  # [path | None] once resolved
 
 
+@functools.lru_cache(maxsize=1)
+def _native_target() -> str:
+    """What -march=native turns on for this host's g++ (every -m target
+    option and its value). A build tuned for one CPU must not be reused on
+    another, so this is part of the build key."""
+    try:
+        return subprocess.run(
+            ["g++", "-march=native", "-Q", "--help=target"],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return ""
+
+
+def build_key(sources, flags, libs=(), native=False) -> str:
+    """Hash of everything a build depends on: the source bytes, the
+    compiler flags and libraries, and (for -march=native builds) the host
+    target."""
+    h = hashlib.sha256()
+    for part in (*flags, "|", *libs, "|", str(native),
+                 _native_target() if native else ""):
+        h.update(part.encode() + b"\0")
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def ensure_built(out, sources, flags, libs=(), native=False) -> str:
+    """Build `out` from `sources` with g++ unless it was already built from
+    these very sources, flags and host target (the key sits beside it in
+    `out + ".key"`; file times play no part). native=True tries
+    -march=native first and falls back to baseline code generation.
+    Builds to a private temp name and renames, so concurrent processes
+    never load a half-written file. Raises CalledProcessError / OSError
+    when the build fails."""
+    key = build_key(sources, flags, libs, native)
+    key_path = out + ".key"
+    try:
+        with open(key_path) as f:
+            if f.read() == key and os.path.exists(out):
+                return out
+    except OSError:
+        pass
+    tmp = f"{out}.tmp.{os.getpid()}"
+    cmd = ["g++", *flags, "-o", tmp, *sources, *libs]
+    try:
+        if native:
+            try:
+                subprocess.run(cmd[:1] + ["-march=native"] + cmd[1:],
+                               check=True, capture_output=True)
+            except subprocess.CalledProcessError:
+                subprocess.run(cmd, check=True, capture_output=True)
+        else:
+            subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    with open(f"{key_path}.tmp.{os.getpid()}", "w") as f:
+        f.write(key)
+    os.replace(f"{key_path}.tmp.{os.getpid()}", key_path)
+    return out
+
+
 def build_av_tool() -> str | None:
     """Path to the cvsim-av container-I/O binary (native/avio.cpp), built
     on first use against the system FFmpeg libraries.  None when g++ or
@@ -43,27 +110,13 @@ def build_av_tool() -> str | None:
             return _av_state[0]
         path = None
         try:
-            if (not os.path.exists(_AV_BIN) or os.path.getmtime(_AV_BIN)
-                    < max(os.path.getmtime(_AV_SRC),
-                          os.path.getmtime(_AV_PIX_SRC))):
-                # build to a private temp name, then atomically rename:
-                # concurrent processes (parallel CLI runs, daemon + client)
-                # must never exec a half-linked binary or collide on the
-                # shared output path.  hostpix.cpp's flags are load-bearing
-                # (-ffp-contract=off: FMA would change the f32 results vs
-                # numpy; see hostpix.py _load); -march=native vectorizes
-                # rintf, with a portable fallback.
-                tmp = f"{_AV_BIN}.tmp.{os.getpid()}"
-                base = ["g++", "-O3", "-ffp-contract=off",
-                        "-fno-math-errno", "-o", tmp, _AV_SRC,
-                        _AV_PIX_SRC] + _AV_LIBS
-                try:
-                    subprocess.run(base[:1] + ["-march=native"] + base[1:],
-                                   check=True, capture_output=True)
-                except subprocess.CalledProcessError:
-                    subprocess.run(base, check=True, capture_output=True)
-                os.replace(tmp, _AV_BIN)
-            path = _AV_BIN
+            # hostpix.cpp's flags are load-bearing (-ffp-contract=off: FMA
+            # would change the f32 results vs numpy; see hostpix.py _load);
+            # -march=native vectorizes rintf
+            path = ensure_built(
+                _AV_BIN, [_AV_SRC, _AV_PIX_SRC],
+                ["-O3", "-ffp-contract=off", "-fno-math-errno"],
+                libs=_AV_LIBS, native=True)
         except subprocess.CalledProcessError as e:
             print("cvsim: cvsim-av build failed (container I/O limited to "
                   "Y4M/WAV + ffmpeg-on-PATH):\n"
@@ -94,12 +147,8 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB, _SRC],
-                check=True)
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(ensure_built(_LIB, [_SRC],
+                                       ["-O2", "-shared", "-fPIC"]))
         lib.hsync_dc_init.argtypes = [
             ctypes.POINTER(_HsyncDcStateStruct), ctypes.c_double,
             ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_int,

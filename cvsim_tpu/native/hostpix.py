@@ -18,10 +18,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 
 import numpy as np
+
+from cvsim_tpu.native import ensure_built
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "hostpix.cpp")
@@ -44,27 +45,14 @@ def _load():
             return _state[0]
         lib = None
         try:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-                # private temp name + atomic rename: concurrent processes
-                # must never dlopen a half-linked library
-                tmp = f"{_LIB}.tmp.{os.getpid()}"
-                # -ffp-contract=off: FMA contraction would change the f32
-                # results vs numpy (see hostpix.cpp header). -march=native
-                # (the library is a self-built per-host cache) vectorizes
-                # rintf to a round instruction instead of a libm call —
-                # ~4x on the scale kernel; fall back to baseline codegen
-                # on compilers/hosts where it fails.
-                base = ["g++", "-O3", "-shared", "-fPIC",
-                        "-ffp-contract=off", "-fno-math-errno",
-                        "-o", tmp, _SRC]
-                try:
-                    subprocess.run(base[:1] + ["-march=native"] + base[1:],
-                                   check=True, capture_output=True)
-                except subprocess.CalledProcessError:
-                    subprocess.run(base, check=True, capture_output=True)
-                os.replace(tmp, _LIB)
-            lib = ctypes.CDLL(_LIB)
+            # -ffp-contract=off: FMA contraction would change the f32
+            # results vs numpy (see hostpix.cpp header). -march=native
+            # vectorizes rintf to a round instruction instead of a libm
+            # call; the build key ties it to this host's CPU.
+            lib = ctypes.CDLL(ensure_built(
+                _LIB, [_SRC],
+                ["-O3", "-shared", "-fPIC", "-ffp-contract=off",
+                 "-fno-math-errno"], native=True))
             lib.cvsim_scale_frame.argtypes = [
                 _u8p, _u8p, _u8p, _L, _L, _L, _L, _L, _L,
                 _i64p, _i64p, _f32p, ctypes.c_int,

@@ -224,7 +224,7 @@ static void vblend(Field& f) {
 }
 
 static void process_field_ep(Field& f, int fieldno, int parity) {
-    // BASELINE.md config 3/4 core: full VHS EP chain (the headline config)
+    // BASELINE.json config 3/4 core: full VHS EP chain (the headline config)
     const double luma_cut = 1400000, chroma_cut = 280000;
     const int chroma_delay = 14;
 
@@ -255,7 +255,7 @@ static void process_field_ep(Field& f, int fieldno, int parity) {
 }
 
 static void process_field_composite(Field& f, int fieldno, int parity) {
-    // BASELINE.md config 1: plain composite emulation — chroma lowpass,
+    // BASELINE.json config 1: plain composite emulation — chroma lowpass,
     // QAM encode/decode, out lowpass; no noise, no VHS
     lowpass_plane(f.i, f.w, f.l, 1300000, 2);
     lowpass_plane(f.q, f.w, f.l, 600000, 4);
@@ -266,7 +266,7 @@ static void process_field_composite(Field& f, int fieldno, int parity) {
 }
 
 static void process_field_broadcast(Field& f, int fieldno, int parity) {
-    // BASELINE.md config 2: composite + luma/chroma/phase noise
+    // BASELINE.json config 2: composite + luma/chroma/phase noise
     // ("broadcast look"); same magnitudes as the device row
     lowpass_plane(f.i, f.w, f.l, 1300000, 2);
     lowpass_plane(f.q, f.w, f.l, 600000, 4);
@@ -286,7 +286,7 @@ static void process_field(Field& f, int fieldno, int parity,
     } else if (!strcmp(config, "broadcast")) {
         process_field_broadcast(f, fieldno, parity);
     } else if (!strcmp(config, "dub2")) {
-        // BASELINE.md config 4: 2-generation EP dub — the whole EP chain
+        // BASELINE.json config 4: 2-generation EP dub — the whole EP chain
         // applied twice (generation 2 re-records generation 1's output,
         // the re-encode pass; yc-recomb cost class
         // ffmpeg_to_composite.cpp:943-946)

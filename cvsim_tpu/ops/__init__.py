@@ -6,7 +6,7 @@ the jax import (see cli/tools.py)."""
 import importlib
 
 _SUBMODULES = ("cmath", "iir", "blocked_iir", "phase", "noise", "noise_np",
-               "roll", "pallas")
+               "roll")
 _REEXPORTS = {
     "c_div": "cmath", "c_int": "cmath", "clampu8": "cmath",
     "clips16": "cmath", "dbfs": "cmath",

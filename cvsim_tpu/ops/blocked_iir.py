@@ -1,4 +1,4 @@
-"""One-pole IIR as a blocked lower-triangular matmul (MXU path).
+"""One-pole IIR as a blocked lower-triangular matmul.
 
 The recurrence y[t] = a*x[t] + (1-a)*y[t-1] has the closed form
 
@@ -11,14 +11,18 @@ d[i] = (1-a)^(i+1) times the previous block's final value. The carry itself
 obeys c_b = yw_b[K-1] + (1-a)^K * c_{b-1} — a scalar recurrence over the
 handful of blocks, unrolled in Python.
 
-This replaces an O(W log W) associative scan (many HBM passes, poor lane
-layouts) with one MXU matmul pass plus an O(W/K) fixup: the TPU-native way
-to run the reference's per-scanline filters (ffmpeg_to_composite.cpp:99-131)
-over [batch, lines, samples] tensors.
+This replaces an O(W log W) associative scan with one matmul pass plus an
+O(W/K) fixup, which is how the reference's per-scanline filters
+(ffmpeg_to_composite.cpp:99-131) run over [batch, lines, samples] tensors.
+K = 128 is a fixed choice; other block sizes have not been measured.
 
-Numerics: T entries decay geometrically, so f32 matmul accumulation is
-integer-exact for the 0..65535-scale plane values used by the engines
-(validated against the sequential float64 loop in tests/test_iir.py).
+Numerics: every matmul asks for Precision.HIGHEST, i.e. true float32
+products. Without it an H100 computes them in TF32 (about 10 mantissa
+bits), and 0.5-15% of the chains' output samples move by up to 3 LSB
+against the float64 oracle. In float32 the result matches the sequential
+float64 loop to within float32 rounding: after truncation to integers at
+most 1 LSB on a small fraction of samples (tests/test_iir.py,
+tests/test_golden_chain.py).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 BLOCK = 128
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=64)
@@ -77,12 +82,9 @@ def _cascade3_consts(alpha: float, block: int, np_dtype: str):
 def iir_lowpass3_blocked(x: jax.Array, alpha, y0, block: int = BLOCK) -> jax.Array:
     """Three identical one-pole lowpasses in series (`LowpassFilter lp[3]`,
     all registers reset to y0) as ONE blocked matmul per 128-sample block —
-    a third of the MXU work of three sequential iir_lowpass_blocked passes.
-
-    The per-block math mirrors the fused kernels' _pole3f exactly (same
-    contraction shapes, same left-to-right add order), so the XLA stage
-    path and the Pallas fused path stay bit-identical.  Long axes
-    (nb > 16: noise walks, audio) fall back to three sequential passes.
+    a third of the matmul work of three sequential iir_lowpass_blocked
+    passes. Long axes (nb > 16: noise walks, audio) fall back to three
+    sequential passes.
     """
     x = jnp.asarray(x)
     dtype = x.dtype
@@ -106,10 +108,10 @@ def iir_lowpass3_blocked(x: jax.Array, alpha, y0, block: int = BLOCK) -> jax.Arr
     xb = xb.reshape(x.shape[:-1] + (nb, block))
 
     yw3 = jnp.einsum("ij,...bj->...bi", T3, xb,
-                     preferred_element_type=dtype)
+                     preferred_element_type=dtype, precision=_HIGHEST)
     # block-end responses of the three stages with zero carry
     u12 = jnp.einsum("kj,...bj->...bk", v12, xb,
-                     preferred_element_type=dtype)
+                     preferred_element_type=dtype, precision=_HIGHEST)
     u1 = u12[..., 0]
     u2 = u12[..., 1]
     u3 = yw3[..., -1]
@@ -156,7 +158,7 @@ def iir_lowpass_blocked(x: jax.Array, alpha, y0, block: int = BLOCK) -> jax.Arra
 
     # Within-block response (no carry): yw[..., b, i] = sum_j T[i,j] x[b, j]
     yw = jnp.einsum("ij,...bj->...bi", T, xb,
-                    preferred_element_type=dtype)
+                    preferred_element_type=dtype, precision=_HIGHEST)
 
     # Carry chain across blocks: c_b = yw[b, -1] + pk * c_{b-1}. Unroll when
     # the block count is small (keeps the graph tiny for scanline widths);

@@ -13,13 +13,11 @@ recurrence, deterministic per seed and independent of evaluation order.
 Generator: a splitmix32 counter stream (golden-ratio counter step + murmur3
 avalanche finalizer). Every draw is a pure function of
 (seed, fieldno, stage, element index) — "content-addressed", so output is
-invariant to GOP batching and restarts. Round 1 used jax.random (threefry);
-its 20-round block cipher was measured at >50% of the whole 1080i chain's
-device time (~0.5 ns/element on v5e) for visual noise whose reference is a
-libc LCG. splitmix32 is ~7 VPU ops per element (~10x cheaper), passes the
-same statistical checks (tests/test_properties.py), and is far above
-rand()'s quality. The swap re-pinned the golden full-chain hashes
-(tests/test_golden_clip.py).
+invariant to GOP batching and restarts. splitmix32 is ~7 integer ops per
+element, against the 20 rounds of jax.random's threefry block cipher, for
+visual noise whose reference is a libc LCG; it passes the statistical checks
+in tests/test_properties.py and is far above rand()'s quality. The golden
+full-chain hashes are pinned in tests/test_golden_clip.py.
 
 The recurrence n[t] = (n[t-1] + u[t]) / 2 is affine, so it runs as the
 blocked-matmul IIR instead of a sequential loop.
@@ -130,15 +128,6 @@ def randint_per_field(keys, shape, lo, hi):
     return out.reshape((keys.shape[0],) + tuple(shape))
 
 
-def smoothed_noise_walk_per_field(keys, n: int, mag: int, dtype=jnp.float32):
-    """Per-field smoothed walks: keys [B] (from field_stage_keys), walk
-    length n per field. Returns [B, n] pre-update walk values."""
-    u = randint_per_field(keys, (n,), -mag, mag + 1)
-    post = iir_lowpass(u.astype(dtype), 0.5, 0.0, axis=-1)
-    head = jnp.zeros_like(post[..., :1])
-    return jnp.concatenate([head, post[..., :-1]], axis=-1)
-
-
 def random_walk_per_field(keys, n: int, mag: int, dtype=jnp.float32):
     """Per-field post-update walks [B, n]."""
     u = randint_per_field(keys, (n,), -mag, mag + 1)
@@ -155,10 +144,8 @@ def smoothed_noise_walk_rows(keys, l: int, w: int, mag: int,
     register in the reference. The walk's alpha-0.5 correlation dies within
     ~20 samples, so the distributions are unchanged except at the first few
     pixels of a line (statistical-parity contract, SURVEY §7 hard-part 2).
-
-    This is the form the fused kernels generate IN-KERNEL: with per-row
-    reset, each line tile's walk depends only on its own rows (no stream
-    carry across arbitrary tile boundaries), so noise never touches HBM."""
+    With per-row reset each line's walk depends only on its own row, so a
+    line-sharded batch needs no carry between shards."""
     u = randint_per_field(keys, (l, w), -mag, mag + 1)
     post = iir_lowpass(u.astype(dtype), 0.5, 0.0, axis=-1)
     head = jnp.zeros_like(post[..., :1])

@@ -3,7 +3,7 @@
 The reference computes, per scanline, a phase index xi in {0,1,2,3} selecting
 where the 4-sample QAM multiplier pattern starts
 (ffmpeg_to_composite.cpp:446-459, ffmpeg_ntsc.cpp:1473-1480). It is a pure
-function of (fieldno, frame_row, comp_phase, comp_phase_offset), so on TPU we
+function of (fieldno, frame_row, comp_phase, comp_phase_offset), so we
 precompute it as a [batch, lines] int32 array and vectorize the QAM stages.
 """
 

@@ -1,12 +1,13 @@
 """Per-row dynamic rotation without gathers (barrel shifter).
 
-TPU gathers along the lane axis are slow; a rotation by a per-row dynamic
-amount decomposes into log2(W) static rolls + selects (a barrel shifter),
-which XLA lowers to cheap lane shifts and vselects.
+A rotation by a per-row dynamic amount decomposes into log2(W) static rolls
++ selects (a barrel shifter): elementwise work that XLA fuses, in place of a
+per-sample gather.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -32,11 +33,13 @@ def roll_rows(a, shift, max_shift: int | None = None):
 
 def select_by_phase(xi, table):
     """Row-phase lookup without a gather: table is a small static [4, W]
-    array; returns table[xi] as [..., W] via a one-hot contraction (lowered
-    to vselects / a tiny matmul).
+    array; returns table[xi] as [..., W] via a one-hot contraction. HIGHEST
+    keeps a float table's rows exact (each output is one row plus exact
+    zeros) where a GPU would otherwise round the products to TF32.
 
     xi: int array [...] with values in [0, 4).
     """
     table = jnp.asarray(table)
     onehot = (xi[..., None] == jnp.arange(4, dtype=jnp.int32))
-    return jnp.einsum("...k,kw->...w", onehot.astype(table.dtype), table)
+    return jnp.einsum("...k,kw->...w", onehot.astype(table.dtype), table,
+                      precision=jax.lax.Precision.HIGHEST)

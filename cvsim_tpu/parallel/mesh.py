@@ -38,10 +38,9 @@ def make_mesh(n_devices: int | None = None, devices=None,
               dp: int | None = None) -> Mesh:
     """2-D ('dp', 'sp') mesh over the first n devices.
 
-    dp: explicit field-parallel extent (sp = n/dp). The line-sharded fused
-    path wants dp == B for small batches (e.g. one frame's 2 fields on 8
-    chips -> dp=2, sp=4); the default square-ish factoring suits large
-    batches.
+    dp: explicit field-parallel extent (sp = n/dp). Line sharding of a small
+    batch wants dp == B (e.g. one frame's 2 fields on 4 devices -> dp=2,
+    sp=2); the default square-ish factoring suits large batches.
 
     Raises if fewer than `n_devices` devices are visible — silently shrinking
     the mesh would let an "8-way sharding" check pass on a 1x1 mesh."""
@@ -85,21 +84,17 @@ def shard_fields(mesh: Mesh, *arrays):
     return out if len(out) > 1 else out[0]
 
 
-def run_sharded_chain_fused(mesh: Mesh, cfg, rgb, fieldno, field_parity,
+def run_field_sharded_chain(mesh: Mesh, cfg, rgb, fieldno, field_parity,
                             key, dtype=None):
-    """Multi-chip deployment path for the FUSED kernels.
-
-    GSPMD cannot auto-partition a Pallas call, so `run_sharded_chain`'s
-    annotate-and-jit approach would forfeit the fused speedup on a real
-    multi-chip mesh (round-1 weak #5). Here the field-batch axis shards over
-    every device (dp and sp flattened — fields are mutually independent and
+    """Field-parallel gen-2 chain: the field-batch axis shards over every
+    device (dp and sp flattened) and each device runs the whole chain on
+    its local block via shard_map. Fields are mutually independent and
     noise is content-addressed per (seed, fieldno, stage), so shard outputs
-    are bit-identical to the single-device batch and no halos/collectives
-    are needed) and each device runs the whole fused chain on its local
-    block via shard_map. On non-TPU backends the per-shard dispatch falls
-    back to the XLA path, which makes the seam testable on the CPU mesh.
+    are bit-identical to the single-device batch and no collectives are
+    needed. This is the layout the CLI's `-devices n` uses inside its GOP
+    programs (host/pipeline.py, host/pipeline_yiq.py).
 
-    rgb: [B, L, W, 3]; B must divide the device count.
+    rgb: [B, L, W, 3]; the device count must divide B.
     """
     import jax.numpy as jnp
     from cvsim_tpu.models import yiq
@@ -115,15 +110,13 @@ def run_sharded_chain_fused(mesh: Mesh, cfg, rgb, fieldno, field_parity,
     meta_sh = NamedSharding(mesh, flat)
 
     def local(rgb, fieldno, field_parity):
-        return yiq.composite_layer_rgb_auto(
+        return yiq.composite_layer_rgb(
             rgb, fieldno, field_parity, key, cfg=cfg, dtype=dtype)
 
-    # check_vma=False: the per-shard body is collective-free (pure batch
-    # map) and the fused path's pallas_call out_shapes carry no vma info
     fn = jax.jit(jax.shard_map(
         local, mesh=mesh,
         in_specs=(P(("dp", "sp")), flat, flat),
-        out_specs=P(("dp", "sp")), check_vma=False))
+        out_specs=P(("dp", "sp"))))
     rgb = jax.device_put(jnp.asarray(rgb, jnp.int32), data_sh)
     fieldno = jax.device_put(jnp.asarray(fieldno, jnp.int32), meta_sh)
     field_parity = jax.device_put(jnp.asarray(field_parity, jnp.int32),
@@ -131,193 +124,13 @@ def run_sharded_chain_fused(mesh: Mesh, cfg, rgb, fieldno, field_parity,
     return fn(rgb, fieldno, field_parity)
 
 
-def run_sharded_chain_fused_lines(mesh: Mesh, cfg, rgb, fieldno,
-                                  field_parity, key,
-                                  interpret: bool | None = None):
-    """Line-sharded multi-chip path for the FUSED kernels (SURVEY 2.3
-    TP-analogue; VERDICT r3 #7).
-
-    `run_sharded_chain_fused` shards fields only, so a batch smaller than
-    the mesh (e.g. one 1080i frame's 2 fields across 8 chips) leaves
-    devices idle. Here the LINE axis shards over 'sp' as well: each device
-    runs the fused kernels on its row block, with the row-dependent pieces
-    held global-exact —
-
-    - the content-addressed noise walks take the shard's global first-row
-      index (the kernels' row_ref operand), so every shard generates its
-      slice of the SAME streams;
-    - the per-line streams (phase xi, chroma-phase walk — a sequential
-      per-line recurrence — and the dropout mask) are computed at full
-      field height inside every shard and row-sliced (they are [B, L]
-      scalars per line, so the duplicated compute is noise);
-    - the two cross-line stages, VHS head switching (a windowed rotation
-      that can straddle shard rows) and the 2-line chroma vertical blend
-      (1-line halo), run BETWEEN the shard_map'd kernels as plain
-      GSPMD-partitioned XLA on the sharded plane — XLA inserts the halo
-      exchange/collective traffic, which touches <= 64 rows.
-
-    Outputs are bit-identical to the unsharded fused dispatch
-    (tests/test_parallel.py::test_line_sharded_fused_bit_identical).
-    B must divide dp and L must divide sp.
-    """
-    import jax.numpy as jnp
-
-    if interpret is None:
-        # unlike run_sharded_chain_fused this path has no XLA fallback —
-        # the point is the fused kernels with a sharded line axis — so on
-        # non-TPU meshes (the CPU test mesh) run them in interpret mode
-        interpret = mesh.devices.flat[0].platform != "tpu"
-
-    rgb = jnp.asarray(rgb, jnp.int32)
-    b, l, w, _ = rgb.shape
-    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
-    if b % dp or l % sp:
-        raise ValueError(
-            f"batch {b} / lines {l} must divide mesh dp={dp} / sp={sp}")
-    l_loc = l // sp
-
-    data_sh = NamedSharding(mesh, P("dp", "sp", None, None))
-    meta_sh = NamedSharding(mesh, P("dp"))
-    spec_plane = P("dp", "sp", None)
-    spec_rgb = P("dp", "sp", None, None)
-    spec_meta = P("dp")
-
-    bodies = _fused_lines_bodies(cfg, key, l, w, interpret)
-    body_a, body_b1, body_b2 = (
-        bodies["a"], bodies["b1"], bodies["b2"])
-
-    def with_row0(body):
-        def wrapped(*ops):
-            row0 = jax.lax.axis_index("sp").astype(jnp.int32) * l_loc
-            return body(*ops, row0)
-        return wrapped
-
-    def smap(body, in_specs, out_specs):
-        # check_vma=False: per-shard bodies are collective-free (pallas
-        # out_shapes carry no vma info), same as run_sharded_chain_fused
-        return jax.shard_map(with_row0(body), mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-
-    @jax.jit
-    def run(rgb, fno, par):
-        y_enc = smap(body_a, (spec_rgb, spec_meta, spec_meta),
-                     spec_plane)(rgb, fno, par)
-        y_enc = bodies["head_switch"](y_enc, fno, par)
-        y2, i2, q2 = smap(
-            body_b1, (spec_plane, spec_rgb, spec_meta, spec_meta),
-            (spec_plane,) * 3)(y_enc, rgb, fno, par)
-        i2, q2 = bodies["vblend"](i2, q2)
-        r_o, g_o, b_o = smap(
-            body_b2,
-            (spec_plane, spec_plane, spec_plane, spec_rgb, spec_meta,
-             spec_meta),
-            (spec_plane,) * 3)(y2, i2, q2, rgb, fno, par)
-        return bodies["pack"](r_o, g_o, b_o)
-
-    rgb = jax.device_put(rgb, data_sh)
-    fieldno = jax.device_put(jnp.asarray(fieldno, jnp.int32), meta_sh)
-    field_parity = jax.device_put(jnp.asarray(field_parity, jnp.int32),
-                                  meta_sh)
-    return run(rgb, fieldno, field_parity)
-
-
-def _fused_lines_bodies(cfg, key, l: int, w: int, interpret):
-    """Per-shard stage bodies + global (cross-line) seam stages of the
-    line-sharded fused program, shared between the shard_map deployment
-    path (run_sharded_chain_fused_lines) and the sequential one-device
-    emulation (run_fused_lines_local) that validates the nonzero-row0
-    kernels natively on a single real chip."""
-    import jax.numpy as jnp
-    from cvsim_tpu.models import fused_yiq, yiq
-    from cvsim_tpu.ops.noise import field_stage_keys
-
-    def _ctx(rgb_loc, fno, par, row0):
-        return fused_yiq._fused_prepare(
-            cfg, rgb_loc, fno, par, key, row0=row0, noise_l=l,
-            interpret=interpret, sharded=True)
-
-    def body_a(rgb_loc, fno, par, row0):
-        return fused_yiq._fused_stage_a(_ctx(rgb_loc, fno, par, row0))
-
-    def body_b1(y_loc, rgb_loc, fno, par, row0):
-        return fused_yiq._fused_stage_b1(_ctx(rgb_loc, fno, par, row0),
-                                         y_loc)
-
-    def body_b2(y_loc, i_loc, q_loc, rgb_loc, fno, par, row0):
-        return fused_yiq._fused_stage_b2(
-            _ctx(rgb_loc, fno, par, row0), y_loc, i_loc, q_loc)
-
-    def head_switch(y_enc, fno, par):
-        # global stage on the (sharded or stitched) full-height plane
-        if not cfg.vhs_head_switching:
-            return y_enc
-        keys1 = field_stage_keys(key, fno, 1)
-        return yiq.head_switching_padded(
-            y_enc, l, w, par, keys1,
-            point=cfg.vhs_head_switching_point,
-            phase=cfg.vhs_head_switching_phase,
-            phase_noise=cfg.vhs_head_switching_phase_noise,
-            ntsc=cfg.ntsc, fill=0.0)
-
-    do_vblend = cfg.emulating_vhs and cfg.vhs_chroma_vert_blend and cfg.ntsc
-
-    def vblend(i2, q2):
-        if not do_vblend:
-            return i2, q2
-        ident = lambda a: a   # shards carry no line padding (lp == l)
-        return (fused_yiq._vblend_xla(i2, l, ident),
-                fused_yiq._vblend_xla(q2, l, ident))
-
-    def pack(r_o, g_o, b_o):
-        out = jnp.stack([r_o[:, :l, :w], g_o[:, :l, :w], b_o[:, :l, :w]],
-                        axis=-1)
-        return out.astype(jnp.uint8)
-
-    return {"a": body_a, "b1": body_b1, "b2": body_b2,
-            "head_switch": head_switch, "vblend": vblend, "pack": pack}
-
-
-def run_fused_lines_local(cfg, rgb, fieldno, field_parity, key, sp: int,
-                          interpret: bool = False):
-    """Sequential one-device emulation of run_sharded_chain_fused_lines:
-    the SAME per-shard bodies run over `sp` row blocks in a Python loop
-    with concrete row0 offsets, and the same global seam stages stitch
-    them. Exists so the nonzero-row0 fused kernels can be compiled and
-    executed NATIVELY on a single real TPU chip
-    (tests/test_cli_tpu.py::test_line_sharded_kernels_native_on_hardware);
-    byte-equals both the mesh path and the unsharded chain."""
-    import jax.numpy as jnp
-
-    rgb = jnp.asarray(rgb, jnp.int32)
-    b, l, w, _ = rgb.shape
-    if l % sp:
-        raise ValueError(f"lines {l} must divide sp={sp}")
-    l_loc = l // sp
-    bodies = _fused_lines_bodies(cfg, key, l, w, interpret)
-    fno = jnp.asarray(fieldno, jnp.int32)
-    par = jnp.asarray(field_parity, jnp.int32)
-
-    def over_shards(body, *planes):
-        outs = [body(*(p[:, s * l_loc:(s + 1) * l_loc] for p in planes),
-                     rgb[:, s * l_loc:(s + 1) * l_loc], fno, par,
-                     jnp.int32(s * l_loc))
-                for s in range(sp)]
-        if isinstance(outs[0], tuple):
-            return tuple(jnp.concatenate(c, axis=1) for c in zip(*outs))
-        return jnp.concatenate(outs, axis=1)
-
-    y_enc = over_shards(bodies["a"])
-    y_enc = bodies["head_switch"](y_enc, fno, par)
-    y2, i2, q2 = over_shards(bodies["b1"], y_enc)
-    i2, q2 = bodies["vblend"](i2, q2)
-    r_o, g_o, b_o = over_shards(bodies["b2"], y2, i2, q2)
-    return bodies["pack"](r_o, g_o, b_o)
-
-
 def run_sharded_chain(mesh: Mesh, cfg, rgb, fieldno, field_parity, key):
-    """Jit + run the full gen-2 chain with explicit shardings over `mesh`.
+    """Jit + run the full gen-2 chain with explicit shardings over `mesh`:
+    fields over dp, scanlines over sp (GSPMD adds the halo exchanges for
+    the two cross-line stages). This is the route for one HD frame over
+    several devices.
 
-    rgb: [B, L, W, 3]; B must divide dp, L must divide sp.
+    rgb: [B, L, W, 3]; dp must divide B, sp must divide L.
     """
     import jax.numpy as jnp
     from cvsim_tpu.models import yiq

@@ -73,9 +73,9 @@ def proc_age() -> float:
 def phase(name: str, **kv) -> None:
     """Machine-readable phase line (CVSIM_PHASES=1): bench.py reads these
     to report startup/first-fetch/steady separately instead of differencing
-    two subprocess walls. proc_age makes interpreter+import cost visible —
-    one-shot CLI cost on a tunneled dev host is dominated by fixed
-    per-process init, and this is the measured breakdown of it."""
+    two subprocess walls. proc_age makes interpreter+import cost visible:
+    a short one-shot CLI run is dominated by fixed per-process start-up,
+    and these lines break it down."""
     if os.environ.get("CVSIM_PHASES") == "1":
         extra = "".join(f" {k}={v}" for k, v in kv.items())
         print(f"[phase] {name} t={time.time():.3f}"

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """End-to-end demo: synthesize SMPTE-ish color bars, push them through a few
-tools, and write PNG snapshots (requires PIL; runs on CPU or TPU).
+tools, and write PNG snapshots (requires PIL; runs on CPU or GPU).
 
     python examples/demo.py /tmp/cvsim_demo
 """

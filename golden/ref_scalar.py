@@ -7,7 +7,7 @@ run it on small fields only.
 
 This is an original re-implementation from the formulas documented in
 SURVEY.md section 2.2 — not a copy of the C++ — kept in exact semantic
-correspondence so the TPU engines can be validated bit-for-bit (float64) or
+correspondence so the JAX engines can be validated bit-for-bit (float64) or
 within tight tolerance (float32).
 """
 
@@ -638,3 +638,128 @@ def cassette_chain_scalar(samples, rate, channels, lowpass_hz, highpass_hz,
             out[si, 0] = out[si, 1] = tot
         count += 1
     return out
+
+
+# ===================================================== whole chains, noise off
+
+def _check_noise_off(cfg):
+    noisy = {k: getattr(cfg, k) for k in (
+        "video_noise", "video_chroma_noise", "video_chroma_phase_noise",
+        "video_chroma_loss") if getattr(cfg, k)}
+    if cfg.vhs_head_switching and cfg.vhs_head_switching_phase_noise:
+        noisy["vhs_head_switching_phase_noise"] = (
+            cfg.vhs_head_switching_phase_noise)
+    if noisy:
+        raise ValueError(f"scalar chains run with noise off, got {noisy}")
+
+
+def composite_layer_scalar(rgb, cfg, fieldno, parity):
+    """Gen-2 composite_layer (ffmpeg_ntsc.cpp:1570-1921) on one [L, W, 3]
+    RGB field, stage order as in models/yiq.composite_layer, with every
+    noise source off (cfg must say so). Returns the [L, W, 3] RGB field."""
+    _check_noise_off(cfg)
+    l, w, _ = rgb.shape
+    y = np.zeros((l, w), np.int64)
+    i = np.zeros((l, w), np.int64)
+    q = np.zeros((l, w), np.int64)
+    for li in range(l):
+        for x in range(w):
+            y[li, x], i[li, x], q[li, x] = rgb_to_yiq(
+                *(int(c) for c in rgb[li, x]))
+    ph = dict(phase_shift=cfg.video_scanline_phase_shift,
+              phase_offset=cfg.video_scanline_phase_shift_offset)
+    amp = cfg.subcarrier_amplitude
+
+    def into(y, i, q):
+        return chroma_into_luma_yiq(y, i, q, fieldno, parity, amp, **ph)
+
+    def back(y, i, q, a=amp):
+        return chroma_from_luma_yiq(y, i, q, fieldno, parity, a, **ph)
+
+    if cfg.composite_in_chroma_lowpass:
+        i, q = composite_lowpass_yiq(i, q)
+    y, i, q = into(y, i, q)
+    if cfg.composite_preemphasis != 0 and cfg.composite_preemphasis_cut > 0:
+        y = preemphasis_yiq(y, cfg.composite_preemphasis,
+                            cfg.composite_preemphasis_cut)
+    if cfg.vhs_head_switching:
+        y = head_switching(y, parity, cfg.vhs_head_switching_point,
+                           cfg.vhs_head_switching_phase, 0.0, ntsc=cfg.ntsc,
+                           fill=0)
+    if not cfg.nocolor_subcarrier:
+        y, i, q = back(y, i, q, cfg.subcarrier_amplitude_back)
+    if cfg.emulating_vhs:
+        sp = cfg.vhs_tape_speed
+        y = vhs_luma_lowpass_yiq(y, sp.luma_cut)
+        i, q = vhs_chroma_lowpass_yiq(i, q, sp.chroma_cut,
+                                      sp.chroma_delay_gen2)
+        if cfg.vhs_chroma_vert_blend and cfg.ntsc:
+            i, q = vhs_chroma_vert_blend_yiq(i, q)
+        y = vhs_sharpen_yiq(y, sp.luma_cut, cfg.vhs_out_sharpen)
+        if not cfg.vhs_svideo_out:
+            y, i, q = back(*into(y, i, q))
+    for _ in range(cfg.video_yc_recombine):
+        y, i, q = back(*into(y, i, q))
+    if cfg.composite_out_chroma_lowpass:
+        i, q = composite_lowpass_yiq(
+            i, q, lite=cfg.composite_out_chroma_lowpass_lite)
+    out = np.zeros((l, w, 3), np.int64)
+    for li in range(l):
+        for x in range(w):
+            out[li, x] = yiq_to_rgb(int(y[li, x]), int(i[li, x]),
+                                    int(q[li, x]))
+    return out
+
+
+def composite_video_process_scalar(y, u, v, cfg, fieldno, parity):
+    """Gen-1 composite_video_process (ffmpeg_to_composite.cpp:629-952) on
+    one field's u8-range planes (y [L, W], u/v [L, W/2]), stage order as in
+    models/yuv422.composite_video_process, with every noise source off.
+    Returns new (y, u, v) int64 planes."""
+    _check_noise_off(cfg)
+    y, u, v = (np.array(p, np.int64) for p in (y, u, v))
+    ph = dict(phase_shift=cfg.video_scanline_phase_shift,
+              phase_offset=cfg.video_scanline_phase_shift_offset,
+              ntsc=cfg.ntsc)
+    amp = cfg.subcarrier_amplitude
+
+    def enc(y, u, v, nocolor=False):
+        return yuv_to_ntsc(y, u, v, fieldno, parity, amp, nocolor=nocolor,
+                           **ph)
+
+    def dec(y, u, v, a=amp, nocolor_after_sep=False):
+        return ntsc_to_yuv(y, u, v, fieldno, parity, a,
+                           nocolor_after_sep=nocolor_after_sep, **ph)
+
+    if cfg.composite_in_chroma_lowpass:
+        u, v = chroma_lowpass_yuv(u, v, ntsc=cfg.ntsc)
+    y, u, v = enc(y, u, v, nocolor=cfg.nocolor_subcarrier)
+    if cfg.composite_preemphasis != 0 and cfg.composite_preemphasis_cut > 0:
+        y = preemphasis_yuv(y, cfg.composite_preemphasis,
+                            cfg.composite_preemphasis_cut)
+    if cfg.vhs_head_switching:
+        y = head_switching(y, parity, cfg.vhs_head_switching_point,
+                           cfg.vhs_head_switching_point, 0.0, ntsc=cfg.ntsc,
+                           fill=16)
+    if not cfg.nocolor_subcarrier:
+        y, u, v = dec(y, u, v, cfg.subcarrier_amplitude_back,
+                      cfg.nocolor_subcarrier_after_yc_sep)
+    if cfg.emulating_vhs:
+        sp = cfg.vhs_tape_speed
+        y = vhs_luma_lowpass_yuv(y, sp.luma_cut)
+        u, v = vhs_chroma_lowpass_yuv(u, v, sp.chroma_cut,
+                                      sp.chroma_delay_gen1)
+        if cfg.vhs_chroma_vert_blend and cfg.ntsc:
+            u, v = vhs_chroma_vert_blend_yuv(u, v)
+        y = vhs_sharpen_luma_yuv(y, sp.luma_cut, cfg.vhs_out_sharpen)
+        u, v = vhs_sharpen_chroma_yuv(u, v, sp.chroma_cut,
+                                      cfg.vhs_out_sharpen_chroma)
+        if not cfg.vhs_svideo_out:
+            y, u, v = dec(*enc(y, u, v))
+    for _ in range(cfg.video_yc_recombine):
+        y, u, v = dec(*enc(y, u, v))
+    if cfg.composite_out_chroma_lowpass:
+        u, v = chroma_lowpass_yuv(u, v, ntsc=cfg.ntsc)
+    elif cfg.composite_out_chroma_lowpass_lite:
+        u, v = chroma_lowpass_yuv(u, v, lite=True)
+    return y, u, v

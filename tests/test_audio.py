@@ -224,10 +224,9 @@ def test_cassette_streaming_equals_whole_with_hiss():
             jnp.asarray(part, jnp.int32), state, key, cfg=cfg)
         outs.append(np.asarray(out))
     # The carried-state math is chunk-invariant; bit-equality additionally
-    # needs shape-independent float scheduling, which the TPU's fixed
-    # systolic contraction order provides (verified exact on hardware). CPU
-    # XLA schedules FMAs shape-dependently, so a sample sitting within an
-    # ULP of a truncation boundary may flip by 1 LSB here — bound it.
+    # needs shape-independent float scheduling, which XLA does not promise:
+    # it contracts FMAs shape-dependently, so a sample sitting within an
+    # ULP of a truncation boundary may flip by 1 LSB — bound it.
     chunked = np.concatenate(outs)
     want = np.asarray(whole)
     diff = np.abs(chunked.astype(np.int64) - want.astype(np.int64))

@@ -21,8 +21,8 @@ L, W = 16, 128
 # 1) noise generator moved from jax.random threefry to the splitmix32
 #    counter stream (ops/noise.py docstring; ~2.5x less device time);
 # 2) noise walks reset per scanline instead of running across the field
-#    (ops/noise.smoothed_noise_walk_rows) so the fused kernels generate
-#    them in-kernel without any cross-tile stream carry.
+#    (ops/noise.smoothed_noise_walk_rows), so a line block's noise needs
+#    no stream carry from the lines above it.
 YIQ_HASH = "6a10e6e35177d940f926785ece50ff0280b4f7868fd8ce768c4edb67cd779087"
 YUV_HASH = "6ba3b3efcd23616c95aaf5829666b0dd6e68e99b466281e30ce5a3c80ec20201"
 

@@ -97,7 +97,7 @@ def test_blocked_long_axis_scan_carry():
 
 
 def test_blocked_matches_scan_f32():
-    """In float32 (the TPU production dtype) blocked and scan paths agree to
+    """In float32 (the production dtype) blocked and scan paths agree to
     float32 tolerance on plane-scale values."""
     rng = np.random.default_rng(8)
     x = jnp.asarray(rng.uniform(-32768, 65280, size=(4, 704)), jnp.float32)

@@ -3,14 +3,14 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from cvsim_tpu.config import CompositeConfig, VHSSpeed
 from cvsim_tpu.models import yiq
 from cvsim_tpu.parallel.mesh import (
     make_mesh,
+    run_field_sharded_chain,
     run_sharded_chain,
-    run_sharded_chain_fused,
-    run_sharded_chain_fused_lines,
     _factor_2d,
 )
 
@@ -44,10 +44,10 @@ def test_sharded_chain_matches_single_device():
     np.testing.assert_array_equal(sharded, single)
 
 
-def test_sharded_chain_fused_seam_matches_single_device():
-    """The shard_map seam the real multi-chip deployment uses (per-shard
-    auto dispatch -> fused on TPU, XLA here): must equal the single-device
-    batch bit-for-bit, including content-addressed noise."""
+def test_field_sharded_chain_matches_single_device():
+    """The shard_map layout the CLI's -devices uses (fields over every
+    device, the whole chain per shard): must equal the single-device batch
+    bit-for-bit, including content-addressed noise."""
     cfg = CompositeConfig(
         emulating_vhs=True, vhs_tape_speed=VHSSpeed.EP,
         video_noise=6, video_chroma_noise=22, video_chroma_phase_noise=6,
@@ -61,7 +61,7 @@ def test_sharded_chain_fused_seam_matches_single_device():
 
     mesh = make_mesh(8)
     sharded = np.asarray(
-        run_sharded_chain_fused(mesh, cfg, rgb, fieldno, parity, key))
+        run_field_sharded_chain(mesh, cfg, rgb, fieldno, parity, key))
     single = np.asarray(yiq.composite_layer_rgb(
         jnp.asarray(rgb), jnp.asarray(fieldno), jnp.asarray(parity), key,
         cfg=cfg))
@@ -69,46 +69,8 @@ def test_sharded_chain_fused_seam_matches_single_device():
 
     import pytest
     with pytest.raises(ValueError, match="must divide"):
-        run_sharded_chain_fused(mesh, cfg, rgb[:6], fieldno[:6], parity[:6],
+        run_field_sharded_chain(mesh, cfg, rgb[:6], fieldno[:6], parity[:6],
                                 key)
-
-
-def test_line_sharded_fused_bit_identical():
-    """Scanline sharding for the FUSED path (SURVEY 2.3 TP-analogue): the
-    line axis sharded over 'sp' with the content-addressed noise walks
-    addressed by absolute row must equal the unsharded staged chain
-    bit-for-bit — including noise, head switching (which straddles shard
-    boundaries) and the 2-line chroma vertical blend (1-line halo)."""
-    cfg = CompositeConfig(
-        emulating_vhs=True, vhs_tape_speed=VHSSpeed.EP,
-        video_noise=6, video_chroma_noise=22, video_chroma_phase_noise=6,
-        video_chroma_loss=8, vhs_head_switching=True)
-    rng = np.random.default_rng(4)
-    b, l, w = 2, 64, 128   # batch < 8 devices: dp-only would idle 6 chips
-    rgb = rng.integers(0, 256, size=(b, l, w, 3)).astype(np.int32)
-    fieldno = np.arange(b, dtype=np.int32)
-    parity = (np.arange(b) & 1).astype(np.int32)
-    key = jax.random.PRNGKey(11)
-
-    mesh = make_mesh(8, dp=2)   # dp=2 x sp=4: 16 lines per shard
-    sharded = np.asarray(run_sharded_chain_fused_lines(
-        mesh, cfg, rgb, fieldno, parity, key))
-    single = np.asarray(yiq.composite_layer_rgb(
-        jnp.asarray(rgb), jnp.asarray(fieldno), jnp.asarray(parity), key,
-        cfg=cfg))
-    np.testing.assert_array_equal(sharded, single)
-
-    import pytest
-    with pytest.raises(ValueError, match="must divide"):
-        run_sharded_chain_fused_lines(mesh, cfg, rgb[:, :61], fieldno,
-                                      parity, key)
-
-    # the sequential one-device emulation (what the hardware-gated test
-    # runs natively on the real chip) goes through the SAME shard bodies
-    from cvsim_tpu.parallel.mesh import run_fused_lines_local
-    local = np.asarray(run_fused_lines_local(
-        cfg, rgb, fieldno, parity, key, sp=4, interpret=True))
-    np.testing.assert_array_equal(local, single)
 
 
 def test_make_mesh_fails_loud_on_too_few_devices():
@@ -136,8 +98,8 @@ def test_graft_entry():
 
 
 def test_graft_entry_dryrun_subprocess():
-    """The driver-facing entry point: must succeed from an arbitrary parent
-    process without touching a TPU client."""
+    """The multi-device dry-run entry point: must succeed from an arbitrary
+    parent process without touching an accelerator."""
     import os
     import sys
     sys.path.insert(0,
@@ -147,29 +109,59 @@ def test_graft_entry_dryrun_subprocess():
     ge.dryrun_multichip(8)
 
 
-def test_devices_flag_pipelines_bit_identical(tmp_path):
-    """-devices 8 (CLI multi-chip flag): both engine pipelines shard the
-    field batch over the mesh via the shard_map seam inside their GOP
-    program; output must be byte-identical to the single-device run."""
+@pytest.mark.parametrize("ndev", [4, 8])
+@pytest.mark.parametrize("tool, extra", [
+    # -bkey-feedback: the gen-1 black-key scan carries sequential per-field
+    # state through the plain-jit prolog while the chain itself is
+    # mesh-sharded — the seam must still be exact
+    ("to-composite", ["-bkey-feedback", "20"]),
+    ("ntsc", []),
+])
+def test_devices_flag_pipelines_bit_identical(tmp_path, tool, extra, ndev):
+    """-devices n (CLI multi-device flag): both engine pipelines shard the
+    field batch over the mesh via shard_map inside their GOP program;
+    output must be byte-identical to the single-device run."""
     from test_cli import make_clip
     from cvsim_tpu.cli.main import main
 
     src = make_clip(str(tmp_path / "in.y4m"))
-    for tool, extra in (
-            # -bkey-feedback: the gen-1 black-key scan carries sequential
-            # per-field state through the plain-jit prolog while the chain
-            # itself is mesh-sharded — the seam must still be exact
-            ("to-composite", ["-bkey-feedback", "20"]),
-            ("ntsc", []),
-    ):
-        a = str(tmp_path / f"{tool}-1.y4m")
-        b = str(tmp_path / f"{tool}-8.y4m")
-        args = ([tool, "-i", src, "-width", "128", "-vhs", "-seed", "7"]
-                + extra)
-        assert main(args + ["-o", a]) == 0
-        assert main(args + ["-o", b, "-devices", "8"]) == 0
-        with open(a, "rb") as fa, open(b, "rb") as fb:
-            assert fa.read() == fb.read(), tool
+    a = str(tmp_path / f"{tool}-1.y4m")
+    b = str(tmp_path / f"{tool}-{ndev}.y4m")
+    args = ([tool, "-i", src, "-width", "128", "-vhs", "-seed", "7"]
+            + extra)
+    assert main(args + ["-o", a]) == 0
+    assert main(args + ["-o", b, "-devices", str(ndev)]) == 0
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read(), tool
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_one_frame_lines_over_four_devices(dp):
+    """One interlaced frame's two fields over four devices with the line
+    axis sharded (dp=1: 4-way over lines; dp=2: fields x 2-way lines), the
+    route for one HD frame across cards: equal to the single-device chain,
+    including head switching and the vertical chroma blend across shard
+    boundaries."""
+    cfg = CompositeConfig(
+        emulating_vhs=True, vhs_tape_speed=VHSSpeed.EP,
+        video_noise=6, video_chroma_noise=22, video_chroma_phase_noise=6,
+        video_chroma_loss=8, vhs_head_switching=True,
+        vhs_head_switching_point=0.2)
+    rng = np.random.default_rng(4)
+    b, l, w = 2, 64, 128
+    rgb = rng.integers(0, 256, size=(b, l, w, 3)).astype(np.int32)
+    fieldno = np.arange(b, dtype=np.int32)
+    parity = (np.arange(b) & 1).astype(np.int32)
+    key = jax.random.PRNGKey(11)
+
+    mesh = make_mesh(4, dp=dp)
+    assert mesh.shape["sp"] == 4 // dp
+    sharded = np.asarray(run_sharded_chain(mesh, cfg, rgb, fieldno, parity,
+                                           key))
+    single = np.asarray(yiq.composite_layer_rgb(
+        jnp.asarray(rgb), jnp.asarray(fieldno), jnp.asarray(parity), key,
+        cfg=cfg))
+    np.testing.assert_array_equal(sharded, single)
 
 
 def test_devices_flag_must_divide_gop():

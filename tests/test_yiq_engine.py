@@ -200,50 +200,6 @@ def test_head_switching_visible_bar():
     assert not np.array_equal(np.asarray(got)[0], rand_yiq(23, l=32, w=64)[1])
 
 
-def test_head_switch_window_shifts_reconstructs_stage():
-    """head_switch_window_shifts (the operand builder for the fused
-    kernels' in-kernel head switch) must reproduce head_switching_stage
-    exactly: rotating ONLY the rows of the returned aligned window by the
-    returned shifts yields the staged output — i.e. the window covers
-    every nonzero-shift row and carries the same decay schedule, across
-    random points/phases (top/middle/bottom switch lines) and the
-    phase-noise branch."""
-    from cvsim_tpu.ops.noise import field_stage_keys
-
-    rng = np.random.default_rng(44)
-    l, w = 120, 176
-    twidth = w + w // 10
-    win = min(72, l)
-    for trial in range(10):
-        point = float(rng.uniform(-0.1, 1.1))
-        phase = float(rng.uniform(-0.1, 1.1))
-        pn = float(rng.choice([0.0, 0.05]))
-        par = jnp.asarray(rng.integers(0, 2, (3,)), jnp.int32)
-        keys = field_stage_keys(jax.random.PRNGKey(trial),
-                                jnp.arange(3, dtype=jnp.int32), 1)
-        y = jnp.asarray(rng.integers(0, 255, (3, l, w)), jnp.float32)
-        ref_out = np.asarray(yiq.head_switching_stage(
-            y, par, keys, point=point, phase=phase, phase_noise=pn,
-            ntsc=True, fill=0, dtype=jnp.float32))
-        shifts, w0a = yiq.head_switch_window_shifts(
-            l, par, keys, point=point, phase=phase, phase_noise=pn,
-            twidth=twidth, ntsc=True, win=win)
-        sh = np.asarray(shifts)
-        w0 = np.asarray(w0a)
-        assert np.all(w0 % 8 == 0) and np.all(w0 + win <= l)
-        out = np.asarray(y).copy()
-        for b in range(3):
-            for k in range(win):
-                s = int(sh[b, k])
-                if s == 0:
-                    continue
-                row = np.concatenate(
-                    [out[b, w0[b] + k], np.zeros(twidth - w, np.float32)])
-                out[b, w0[b] + k] = np.roll(row, -s)[:w]
-        np.testing.assert_array_equal(out, ref_out,
-                                      err_msg=f"trial={trial}")
-
-
 def test_full_chain_noise_off_matches_golden():
     cfg = CompositeConfig(
         video_noise=0, video_chroma_noise=0, video_chroma_phase_noise=0,
